@@ -1,11 +1,10 @@
 """Deep10M-class sharded configuration (BASELINE.json scale-up config).
 
-Real Deep10M (10M × 96) wants a v5e-8 pod slice: ~4 GB of PQ codes shard
-across 8 chips, each scanning 1/8th of the probed buckets, with the k-best
-merge riding ICI. (The CPU mesh validates the program, not its speed —
+Sharded Deep10M (10M × 96) splits the PQ codes across the cards of a
+mesh, each scanning its share of the probed buckets, with a k-best merge
+across the mesh. (The CPU mesh validates the program, not its speed —
 virtual CPU devices execute GSPMD programs orders of magnitude slower
-than chips.) Only one physical chip is attached to this container, so
-this script executes the EXACT multi-chip program — sharded build +
+than cards.) This script executes the EXACT multi-device program — sharded build +
 shard_map query with local top-k and all_gather merge — on the virtual
 8-device CPU mesh at a scaled-down shape, verifying the sharded results
 against single-device execution. On real hardware only the mesh handle

@@ -1,7 +1,7 @@
 """Linalg microbenchmarks — the reference's ``bin/benchmark.rs`` analogue.
 
 The reference benchmarks its 16-way-unrolled kernels against naive loops on
-10M-element vectors. The TPU equivalents are single fused XLA programs; this
+10M-element vectors. The device equivalents are single fused XLA programs; this
 compares them against single-threaded numpy on the host (the role the naive
 loops play there), on the same 10M-element workload.
 
@@ -26,7 +26,7 @@ def main():
     a = rng.standard_normal(n).astype(np.float32)
     b = rng.standard_normal(n).astype(np.float32)
     ad, bd = jnp.asarray(a), jnp.asarray(b)
-    _ = np.asarray(ad[:1])
+    jax.block_until_ready(ad)
 
     ops = {
         "dot": (lambda: float(np.dot(a, b)),
@@ -60,7 +60,7 @@ def main():
         print(json.dumps({
             "op": name, "n": n,
             "numpy_ms": round(host_ms, 3),
-            "tpu_ms": round(dev_ms, 3),
+            "device_ms": round(dev_ms, 3),
             "speedup": round(host_ms / dev_ms, 1),
         }), flush=True)
 

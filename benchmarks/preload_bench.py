@@ -1,7 +1,7 @@
 """Cold-preload benchmark: serial vs concurrent partition loading.
 
-VERDICT.md round-1 #5 flagged `StoredDatabase.preload` doing P sequential
-open→inflate→decode round-trips; it now runs on a thread pool with the
+`StoredDatabase.preload` once did P sequential open→inflate→decode
+round-trips; it now runs on a thread pool with the
 native GIL-released inflate. This measures both at SIFT scale (P=1024).
 
 Usage: python benchmarks/preload_bench.py [--n 200000] [--p 1024]

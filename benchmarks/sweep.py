@@ -1,4 +1,4 @@
-"""BASELINE.json benchmark sweep on real TPU hardware.
+"""BASELINE.json benchmark sweep on the accelerator.
 
 Configs (BASELINE.json "configs"):
   * sift: SIFT1M-shaped (1M × 128, P=1024, D=8, C=256) — recall@10 + qps
@@ -43,7 +43,7 @@ def synth(rng, n, m, intrinsic, n_clusters=256):
 
 
 def exact_topk_device(x, q, k, metric="l2"):
-    """Brute-force ground truth on TPU, chunked over the corpus.
+    """Brute-force ground truth on the device, chunked over the corpus.
 
     ``metric="dot"`` ranks by the negated inner product (exact MIPS)."""
     import jax
@@ -92,7 +92,7 @@ def run_sift(scale, rng, opq=False):
                                n_clusters=256, intrinsic=12)
     x, q = xd, np.asarray(qdev)
     cfg = "sift-opq" if opq else "sift"
-    _ = np.asarray(xd[:1, :1])        # fence the generation
+    jax.block_until_ready(xd)        # fence the generation
     t0 = time.time()
     built = _build_step(xd, jax.random.key(0), p=p, d=d, c=c)
     pidx = np.asarray(built.partition_indices)
@@ -114,7 +114,7 @@ def run_sift(scale, rng, opq=False):
         t0 = time.time()
         res = fit_opq(resid, d, c, jax.random.key(2), iters=6)
         rotation, codes = res.rotation, res.pq.indices.T
-        _ = np.asarray(codes[:1])
+        jax.block_until_ready(codes)
         log({"config": cfg, "metric": "opq training (6 iters)",
              "value": round(time.time() - t0, 2), "unit": "s"})
 
@@ -134,7 +134,7 @@ def run_sift(scale, rng, opq=False):
         # Coarse-only recall: fraction of true neighbors whose PARTITION
         # was probed (truth-in-candidates rate). The end recall@10 can
         # saturate on PQ error (plain PQ sat at 0.589 for nprobe >= 5 on
-        # this draw, VERDICT r4 weak #5) — this column still moves with
+        # this draw) — this column still moves with
         # the coarse quantizer, so a centroid regression stays visible.
         probed_h = np.asarray(probed)
         coarse = np.mean([np.isin(pidx[gt[b]], probed_h[b]).mean()
@@ -213,7 +213,7 @@ def run_mips(scale, rng):
     xd, qdev = gmm_pair_device(jax.random.key(17), n, nq, m,
                                n_clusters=256, intrinsic=12)
     q = np.asarray(qdev)
-    _ = np.asarray(xd[:1, :1])
+    jax.block_until_ready(xd)
     t0 = time.time()
     built = _build_step(xd, jax.random.key(0), p=p, d=d, c=c)
     pidx = np.asarray(built.partition_indices)
@@ -270,10 +270,9 @@ def run_mips(scale, rng):
 
 
 def run_gist(scale, rng, impl=None):
-    """``impl`` forwards to the Lloyd-round kernel selection
-    (``ops.kmeans._fused_round``): ``--impl _fast`` runs the whole build
-    with fast_math numerics (single bf16 passes) for the end-to-end row
-    VERDICT round-3 #8 asks for."""
+    """``impl`` forwards to the Lloyd-round numerics
+    (``ops.kmeans._assign_precision``): ``--impl _fast`` runs the whole build
+    with fast_math numerics (``Precision.DEFAULT`` assignment matmuls)."""
     import jax
     import jax.numpy as jnp
     from flechasdb_tpu.parallel.build import build_step_donating
@@ -288,7 +287,7 @@ def run_gist(scale, rng, impl=None):
     def gen():
         xd = gmm_corpus_device(jax.random.key(23), n, m,
                                n_clusters=256, intrinsic=32)
-        _ = np.asarray(xd[:1, :1])    # fence the generation
+        jax.block_until_ready(xd)    # fence the generation
         return xd
 
     xd = gen()

@@ -2,7 +2,7 @@
 
 Python rendition of the reference walkthrough (``examples/build-random``,
 100k×1536, P=100, D=12, C=256): the build that takes ~906 s on an M1 Pro CPU
-runs in ~2 s of device time on one TPU v5e chip (plus one-time compile).
+(the reference README's number) runs on the accelerator JAX finds.
 
 Usage: python examples/build_random.py [testdb]
 """

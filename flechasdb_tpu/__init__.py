@@ -1,9 +1,9 @@
-"""flechasdb-tpu: a TPU-native serverless-friendly vector database.
+"""flechasdb-tpu: a serverless-friendly vector database on JAX accelerators.
 
 A ground-up rebuild of the flechasdb IndexIVFPQ engine (IVF coarse
 partitioning + product quantization with residual encoding) where every hot
 loop — k-means++ seeding, Lloyd's iterations, ADC distance tables, PQ code
-scans, top-k selection — runs as batched JAX/XLA/Pallas programs on TPU,
+scans, top-k selection — runs as batched JAX/XLA/Pallas programs on the device,
 while the storage format stays compatible with the reference: databases are
 content-addressed, zlib-compressed protobuf artifacts that a stateless reader
 can load lazily, partition by partition.

@@ -8,7 +8,7 @@ receives one of the dataclasses below. Consumers typically timestamp them; for
 on-device phases pair this with ``jax.profiler`` traces.
 
 One deliberate divergence: PQ codebook training is *batched over divisions* on
-TPU (all D clusterings advance in lock-step inside one kernel), so cluster
+the device (all D clusterings advance in lock-step in one program), so cluster
 events during quantization carry a per-division gradient vector instead of
 being emitted per division sequentially.
 """

@@ -2,14 +2,14 @@
 
 EXTENSION — the reference has no filtered search (its attributes are
 fetch-only, ``db/stored.rs:625-638``); this is the feature most vector-DB
-users reach for next, and the TPU-first design makes it nearly free:
+users reach for next, and the device-first design makes it nearly free:
 
 * A predicate over per-vector attributes compiles on the host into one
   boolean **row mask** ``[N]`` (vectorized numpy over cached attribute
   *columns* — no per-row Python in the steady state).
 * The mask ships to the device once and is applied inside the fused query
   kernels: masked rows get ``+inf`` before the ``lax.top_k``, so filtering
-  costs one ``[N]``-bool gather + select on the VPU — no second pass, no
+  costs one ``[N]``-bool gather + select — no second pass, no
   host-side post-filtering, and exact ``k`` semantics (results are the k
   nearest *matching* vectors reachable via the probed partitions).
 

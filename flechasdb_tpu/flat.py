@@ -1,7 +1,7 @@
 """Flat (exact-search) database — reference roadmap item, implemented.
 
 The reference lists "Flat database" as unreleased future work
-(``README.md:74``). This module ships it TPU-native: raw vectors stored in
+(``README.md:74``). This module ships it device-native: raw vectors stored in
 content-addressed chunks (same hashing/compression/attribute machinery as
 the IVF-PQ format, :mod:`.serialize`), exact k-NN served by the chunked
 device scan in :mod:`.ops.exact`, and — because chunks are independent
@@ -125,7 +125,7 @@ class FlatDatabase:
         ``jax.sharding.Mesh``, row-shards it across the mesh so queries
         run the SPMD exact scan (:func:`..parallel.exact.exact_sharded`;
         local top-k per device, ``all_gather`` k-best merge). Corpora
-        larger than one chip's HBM serve this way. Queries preload
+        larger than one device's memory serve this way. Queries preload
         lazily on first use; call this explicitly to choose a mesh.
         A no-op when already resident under the same mesh."""
         import jax.numpy as jnp
@@ -326,7 +326,7 @@ def _exact_keys(vs, xd, metric: str):
 
     The jit wrapper is module-cached — a per-call closure would retrace
     and recompile on EVERY query_range (measured 300× per-call overhead
-    on CPU; far worse through a TPU compile)."""
+    on CPU)."""
     global _exact_keys_jit
     if _exact_keys_jit is None:
         import functools

@@ -1,1 +1,1 @@
-"""TPU compute kernels (JAX/XLA/Pallas)."""
+"""Device compute kernels (JAX/XLA, one Pallas kernel for NVIDIA GPUs)."""

@@ -6,7 +6,7 @@ partition centroid, pick the ``nprobe`` nearest partitions, build a ``D×C``
 ADC distance table per selected partition, then scan members accumulating
 ``Σ_d table[d, code[d]]`` and keep the ``k`` best.
 
-TPU-first redesign — one fused program per query batch:
+Device-first redesign — one fused program per query batch:
 
 1. Coarse distances to all ``P`` centroids: one ``[B, P]`` matmul.
 2. ``lax.top_k`` picks ``nprobe`` partitions per query.
@@ -21,7 +21,7 @@ TPU-first redesign — one fused program per query batch:
 5. ``lax.top_k`` for the final k-best merge (replaces ``nbest.rs``).
 
 The masked scan reads ``N×D`` table entries; at u32 codes and f32 tables the
-whole thing is HBM-bandwidth bound and fast for corpus sizes a single chip
+whole thing is memory-bandwidth bound and fast for corpus sizes a single device
 holds. A gather-pruned variant (only selected partitions' codes touched)
 pays off when ``nprobe × avg_len ≪ N``; see ``pruned`` mode below.
 """

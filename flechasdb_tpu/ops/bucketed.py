@@ -4,18 +4,17 @@ The masked full scan (:mod:`.adc`) touches all ``N`` code rows per query —
 optimal when ``nprobe × avg_partition ≈ N``, wasteful when ``nprobe ≪ P``
 (SIFT1M: P=1024, nprobe=10 ⇒ ~100× extra reads). This module is the pruned
 layout: codes bucketize by partition into a padded ``[P, D, L]`` block array
-— L MINOR, so the 128-lane tiling pads the large axis; see
-:class:`Buckets` for the up-to-16× HBM blowup the other orientation costs
-— (the device analogue of the reference's per-partition files,
+(the device analogue of the reference's per-partition files,
 ``database.proto:47-63``), and a query touches only its ``nprobe`` buckets:
 
 1. coarse top-k picks ``probed [B, nprobe]``,
 2. ADC tables ONLY for probed partitions: ``[B, nprobe, D, C]`` einsum,
-3. bucket lookup (in-place scalar-prefetch kernel, or gather + table sum),
+3. bucket lookup: table lookup-sum over the probed buckets
+   (:func:`bucket_scan`),
 4. mask pad rows, ``lax.top_k`` over ``[B, nprobe·L]``.
 
 Static shapes throughout — ragged partition sizes become one padded length
-``L`` (max partition size rounded up to the lane width), so there is no
+``L`` (max partition size rounded up to a multiple of 128), so there is no
 retracing across queries or nprobe sets (SURVEY.md §7 "hard parts").
 """
 
@@ -44,12 +43,9 @@ class Buckets(NamedTuple):
     ``lengths: [P]``. :func:`query_bucketed` detects packing from the
     shape (``codes.shape[1] != D``).
 
-    The member axis ``L`` is minor: TPU tiled layouts pad the minor
-    dimension to 128 lanes, so a ``[.., L, D]`` layout would inflate the
-    small code axis ``D`` by up to 16× in HBM (observed: a 3 GB gather
-    becoming a 49 GB allocation at nprobe=50). Packing cuts the resident
-    code array (and the per-query bucket gather) another 4× — at Deep10M
-    shape the padded array drops 1.34 GB → 0.34 GB.
+    The member axis ``L`` is minor, so one bucket's codes for one
+    division are contiguous and the scan reads them in order. Packing
+    cuts the resident code array (and the per-query bucket gather) 4×.
     """
     codes: jax.Array
     rows: jax.Array
@@ -60,10 +56,7 @@ def bucketize(codes: np.ndarray, pidx: np.ndarray, p: int,
               lane: int = 128, pack: bool | str = False) -> Buckets:
     """Host-side bucketization of ``codes [N, D]`` by partition.
 
-    ``L`` = max partition size rounded up to ``lane`` so the scan axis
-    tiles cleanly onto the VPU/MXU (large ``L`` further rounds to a
-    1024-multiple so the DMA-pipelined scan always has mid-size exact
-    tiles — see below).
+    ``L`` = max partition size rounded up to a multiple of ``lane``.
 
     ``pack``: ``True`` packs four codes per int32 word (requires every
     code < 256 and D > 1, else raises); ``"auto"`` packs when possible;
@@ -82,15 +75,6 @@ def bucketize(codes: np.ndarray, pidx: np.ndarray, p: int,
     counts = np.bincount(pidx, minlength=p)
     l = int(max(counts.max() if n else 1, 1))
     l = -(-l // lane) * lane
-    if l > 2048:
-        # Round large L up to a 1024-multiple (round 5): a bare
-        # lane-multiple can land on 128·prime (observed L = 10624 =
-        # 128·83 on a Deep10M draw), which leaves the DMA-pipelined scan
-        # no mid-size exact tile — it then scans whole buckets and its
-        # dead-TILE skip (slots past the fill count) never fires
-        # mid-bucket. 8 | (L/128) guarantees ~1–2K tiles exist; the pad
-        # cost is < 1024 slots per partition of an already-padded array.
-        l = -(-l // 1024) * 1024
     bcodes = np.zeros((p, d, l), np.int32)
     brows = np.full((p, l), -1, np.int32)
     order = np.argsort(pidx, kind="stable")
@@ -168,37 +152,30 @@ def probed_tables(q: jax.Array, centroids: jax.Array, codebooks: jax.Array,
 
 
 def bucket_scan(codes: jax.Array, ftab: jax.Array, bidx: jax.Array,
-                lengths: jax.Array | None = None, *,
-                d: int, impl: str) -> jax.Array:
+                lengths: jax.Array | None = None, *, d: int) -> jax.Array:
     """Lookup-sum of ``ftab`` over the buckets selected by ``bidx``.
 
     ``codes [P, D|DP, L]`` resident buckets, ``ftab [G, D*C]``, ``bidx
-    [G]`` → ``[G, L]``. ``impl="pallas"`` streams buckets in place
-    (:func:`.pallas_scan.adc_lookup_indexed`); ``"gather"``
-    materializes the gathered copy then looks up. ``lengths [G]``
-    (optional): per-cell fill counts — slots beyond them come back
-    ``+inf`` (fused into the pipeline kernel where available; an
-    explicit mask otherwise).
+    [G]`` → ``[G, L]``: per slot, the sum over divisions of the table
+    value its code selects. ``lengths [G]`` (optional): per-cell fill
+    counts — slots beyond them come back ``+inf``.
     """
     g = ftab.shape[0]
     l = codes.shape[2]
     c = ftab.shape[1] // d
-    packed = codes.shape[1] != d
-    if impl == "pallas":
-        from .pallas_scan import adc_lookup_indexed
-        return adc_lookup_indexed(codes, ftab, bidx, lengths, d=d)
-    if impl != "gather":
-        raise ValueError(f"unknown impl: {impl!r}")
     bcodes = jnp.take(codes, bidx, axis=0)              # [G, D|DP, L]
-    if packed:
+    if codes.shape[1] != d:
         bcodes = unpack_codes(bcodes, d)
     gidx = bcodes + jnp.arange(d, dtype=jnp.int32)[None, :, None] * c
     vals = jnp.take_along_axis(ftab, gidx.reshape(g, d * l), axis=-1)
-    from .pallas_scan import _mask_lengths
-    return _mask_lengths(vals.reshape(g, d, l).sum(axis=1), lengths)
+    vdist = vals.reshape(g, d, l).sum(axis=1)
+    if lengths is None:
+        return vdist
+    slot = jnp.arange(l, dtype=jnp.int32)
+    return jnp.where(slot[None, :] < lengths[:, None], vdist, jnp.inf)
 
 
-@functools.partial(jax.jit, static_argnames=("nprobe", "impl", "metric"))
+@functools.partial(jax.jit, static_argnames=("nprobe", "metric"))
 def range_bucketed(
     q: jax.Array,
     centroids: jax.Array,
@@ -208,7 +185,6 @@ def range_bucketed(
     row_mask: jax.Array | None = None,
     *,
     nprobe: int,
-    impl: str | None = None,
     metric: str = "l2",
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Range-search candidates: every reachable vector's ADC key.
@@ -231,11 +207,9 @@ def range_bucketed(
     tables = probed_tables(q, centroids, codebooks, probed, rotation,
                            metric, coarse)
 
-    if impl is None:
-        impl = _default_impl()
     vdist = bucket_scan(
         buckets.codes, tables.reshape(b * nprobe, d * c),
-        probed.reshape(b * nprobe).astype(jnp.int32), d=d, impl=impl,
+        probed.reshape(b * nprobe).astype(jnp.int32), d=d,
     ).reshape(b, nprobe, l)
 
     lens = jnp.take(buckets.lengths, probed, axis=0)    # [B, nprobe]
@@ -251,19 +225,7 @@ def range_bucketed(
             probed.astype(jnp.int32))
 
 
-def _platform() -> str:
-    """Effective platform: honours ``jax_default_device`` (tests pin it to
-    CPU while a TPU plugin still owns the default backend)."""
-    dev = jax.config.jax_default_device
-    return dev.platform if dev is not None else jax.default_backend()
-
-
-def _default_impl() -> str:
-    return "pallas" if _platform() == "tpu" else "gather"
-
-
-@functools.partial(jax.jit, static_argnames=("k", "nprobe", "impl",
-                                              "metric", "approx"))
+@functools.partial(jax.jit, static_argnames=("k", "nprobe", "metric"))
 def query_bucketed(
     q: jax.Array,
     centroids: jax.Array,
@@ -274,9 +236,7 @@ def query_bucketed(
     *,
     k: int,
     nprobe: int,
-    impl: str | None = None,
     metric: str = "l2",
-    approx: bool | float = False,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Batched pruned IVF-PQ k-NN.
 
@@ -288,9 +248,6 @@ def query_bucketed(
     ``row_mask [N] bool`` (optional): corpus rows whose mask is False are
     excluded (attribute filtering, :mod:`..filters`) — one gather + select
     after the ADC scan, before top-k.
-
-    ``impl``: ``"pallas"`` (VMEM compare-select kernel, default on TPU),
-    ``"gather"`` (XLA ``take_along_axis``, default elsewhere).
     """
     b, m = q.shape
     p = centroids.shape[0]
@@ -302,24 +259,14 @@ def query_bucketed(
     tables = probed_tables(q, centroids, codebooks, probed, rotation,
                            metric, coarse)
 
-    # Table lookup-sum over the probed buckets. The pallas path reads the
-    # buckets IN PLACE via scalar-prefetch block indexing (the gathered
-    # [B, nprobe, D|DP, L] HBM copy never materializes — it used to be
-    # written once and read once per query batch); the XLA impl gathers
-    # then looks up, as before.
-    if impl is None:
-        impl = _default_impl()
-    # Pad-slot masking from bucket lengths (bucketize fills slots
-    # [0, count) in order, so slot < length ⟺ the old brows >= 0 test)
-    # rides the scan itself (round 5: fused in-register on the pipeline
-    # kernel — the separate [B, nprobe, L] where-pass cost a full HBM
-    # round trip of vdist); the row gather is only paid on filtered
-    # queries.
+    # Pad slots are masked from bucket lengths (bucketize fills slots
+    # [0, count) in order, so slot < length ⟺ the slot holds a row); the
+    # row gather is only paid on filtered queries.
     lens = jnp.take(buckets.lengths, probed, axis=0)    # [B, nprobe]
     vdist = bucket_scan(
         buckets.codes, tables.reshape(b * nprobe, d * c),
         probed.reshape(b * nprobe).astype(jnp.int32),
-        lens.reshape(b * nprobe).astype(jnp.int32), d=d, impl=impl,
+        lens.reshape(b * nprobe).astype(jnp.int32), d=d,
     ).reshape(b, nprobe, l)
 
     if row_mask is not None:
@@ -330,20 +277,7 @@ def query_bucketed(
     # k may exceed the candidate count (reference returns fewer results
     # then); pad the tail with +inf instead of failing top_k.
     kk = min(k, nprobe * l)
-    if approx and _platform() == "tpu":
-        # Opt-in ANN candidate selection (round 5): TPU's PartialReduce
-        # approx_max_k measured 0.6–0.8 ms where exact top_k takes
-        # ~30 ms standalone at [64, 360k] — the binding stage of
-        # high-nprobe Deep10M serving. ~0.98 candidate recall at the
-        # default target; pair with rerank (exact re-scoring) to keep
-        # the end operating point. ``approx`` may be a float recall
-        # target in (0, 1); True = lax default (0.95). Off-TPU the op
-        # has no fast lowering — exact is used regardless.
-        rt = approx if isinstance(approx, float) else 0.95
-        neg, flat_idx = jax.lax.approx_max_k(
-            -vdist.reshape(b, nprobe * l), kk, recall_target=rt)
-    else:
-        neg, flat_idx = jax.lax.top_k(-vdist.reshape(b, nprobe * l), kk)
+    neg, flat_idx = jax.lax.top_k(-vdist.reshape(b, nprobe * l), kk)
     # Winners → corpus rows: a [B, kk] gather instead of the full per-slot
     # row matrix (pad slots map to buckets.rows == -1, as before).
     win_part = jnp.take_along_axis(probed, flat_idx // l, axis=1)

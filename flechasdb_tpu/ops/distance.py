@@ -2,14 +2,15 @@
 
 The reference computes every distance scalar-by-scalar: ``subtract`` into a
 buffer then ``dot`` (e.g. k-means reassignment at ``kmeans.rs:279-306``, ADC
-tables at ``db/stored.rs:556-573``). On TPU all of those brute-force scans
-collapse into one algebraic identity that runs on the MXU::
+tables at ``db/stored.rs:556-573``). On the device all of those brute-force
+scans collapse into one algebraic identity that runs as a matmul::
 
     ||a - b||^2 = ||a||^2 + ||b||^2 - 2 a.b
 
 Matmuls are issued with ``preferred_element_type=float32`` and HIGHEST
-precision so f32 inputs are not silently routed through bf16 passes — distance
-comparisons drive top-k selection, so we keep full f32 accuracy.
+precision so f32 inputs are not silently rounded to TF32 (what DEFAULT and
+HIGH allow on GPUs) — distance comparisons drive top-k selection, so we keep
+full f32 accuracy.
 """
 
 from __future__ import annotations
@@ -68,10 +69,10 @@ def assign_chunked(x: jax.Array, c: jax.Array, *, k: int,
     ``x: [B, N, M]``, ``c: [B, K, M]`` → ``(indices [B, N] int32,
     min_sqdist [B, N])``. Chunks are taken with ``dynamic_slice`` inside a
     ``fori_loop`` — no padded/transposed copy of ``x`` is ever materialized
-    (at GIST1M scale such copies are ~4 GB each and were crashing the chip).
-    The transient ``[B, chunk, K]`` distance tile bounds HBM usage; this
+    (at GIST1M scale such copies are ~4 GB each).
+    The transient ``[B, chunk, K]`` distance tile bounds device memory; this
     replaces the reference's per-vector reassignment loop
-    (``kmeans.rs:279-306``) with MXU-tiled matmuls.
+    (``kmeans.rs:279-306``) with tiled matmuls.
     """
     b, n, m = x.shape
     chunk = min(chunk, n)

@@ -1,9 +1,9 @@
 """Exact (flat) k-NN scan.
 
 The reference lists "Flat database" as an open roadmap item
-(``README.md:74``); this is its TPU-native core: a brute-force scan as a
+(``README.md:74``); this is its device-native core: a brute-force scan as a
 running top-k fold over corpus chunks — one ``[B, chunk]`` distance matmul
-per step, so arbitrarily large corpora stream through HBM with a bounded
+per step, so arbitrarily large corpora stream through device memory with a bounded
 footprint. Also serves as the ground-truth oracle for recall benchmarks.
 """
 

@@ -1,7 +1,7 @@
 """Dense linear-algebra primitives.
 
 The reference hand-unrolls these 16-wide for CPU SIMD (``src/linalg.rs``).
-On TPU every one of them is a single fused XLA op, so this module is mostly a
+On the device every one of them is a single fused XLA op, so this module is mostly a
 semantic contract: it pins down the edge-case behaviour the reference's 42
 unit tests encode (empty inputs, the overflow-safe ``norm2`` prescaling at
 ``linalg.rs:61-75``, min/max on empty slices) so higher layers can rely on it.

@@ -6,7 +6,7 @@ codebook capacity. OPQ learns an orthogonal rotation ``R`` minimizing the
 quantization error ``||X R − PQ(X R)||²`` by alternating (a) PQ training on
 the rotated data and (b) the orthogonal Procrustes update ``R = U Vᵀ`` from
 ``SVD(Xᵀ X̂)`` (Ge et al., CVPR 2013 — standard technique, re-derived here
-for TPU: both the reconstruction and the ``[M, M]`` Gram matrix are single
+for the device: both the reconstruction and the ``[M, M]`` Gram matrix are single
 matmuls; only the small SVD runs on host).
 
 Distances are preserved exactly (``R`` orthogonal ⇒ ``||x − q|| =

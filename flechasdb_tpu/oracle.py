@@ -8,14 +8,14 @@ max-displacement convergence rule and R <= 100 rounds
 (``src/db/build.rs:78-129``), and the ADC partition query
 (``src/db/build.rs:521-565``). It exists for two reasons:
 
-1. **Quality parity** (VERDICT.md round-1 #4): the TPU build's inertia and
+1. **Quality parity**: the device build's inertia and
    recall must match this oracle within stochastic noise at equal
    ``(P, D, C)`` on the same data — that is the testable meaning of
    "matches reference recall at equal PQ memory" when RNG streams can never
    be bit-identical across implementations.
 2. **dtype genericity**: the reference's number-trait layer makes the whole
-   stack f32/f64-generic (``src/numbers.rs:6-111``). The TPU device path is
-   f32 (MXU-native); this oracle is the f64-capable host path — every
+   stack f32/f64-generic (``src/numbers.rs:6-111``). The device path is
+   f32; this oracle is the f64-capable host path — every
    function takes a ``dtype`` and computes end-to-end in it.
 
 It is deliberately slow (CPU, no JAX): correctness reference, not a serving
@@ -50,7 +50,7 @@ def weighted_sample(weights: np.ndarray, rng: np.random.Generator) -> int:
     total = float(weights.sum())
     if total <= 0.0:
         # All remaining weights zero (all vectors identical): the reference
-        # panics here (kmeans.rs:199 TODO); we mirror the TPU path's
+        # panics here (kmeans.rs:199 TODO); we mirror the device path's
         # degenerate-to-first-index behavior.
         return 0
     u = rng.uniform(0.0, total)

@@ -3,13 +3,13 @@
 The reference has **no** distributed components (SURVEY.md §2: "Parallelism &
 distributed-communication components: NONE") — its scaling story is
 storage-level sharding of content-addressed partition files
-(``database.proto:16-39``). The TPU-native analogue promotes that design to a
+(``database.proto:16-39``). The device-native analogue promotes that design to a
 first-class device-mesh component set:
 
 * the IVF **corpus axis is the data-parallel axis**: PQ codes and partition
   assignments shard across devices of a :class:`jax.sharding.Mesh`;
 * **build** (k-means training) runs with the vector axis sharded — XLA
-  inserts ``psum`` collectives for the cluster-sum/count reductions over ICI;
+  inserts ``psum`` collectives for the cluster-sum/count reductions;
 * **query** runs as an SPMD ``shard_map`` program: every device scans its
   local shard, keeps a local top-k, and the k-best merge rides an
   ``all_gather`` of just ``k`` candidates per device (never the full

@@ -1,8 +1,8 @@
 """SPMD sharded PRUNED (bucketed) IVF-PQ query.
 
 The masked sharded query (:mod:`.query`) scans all ``N / n_dev`` local
-rows per device regardless of ``nprobe`` — it forfeits the 3–6× measured
-single-chip pruning gain (VERDICT.md round-2 weak #2). This module shards
+rows per device regardless of ``nprobe`` — it forfeits the pruning of
+the single-device bucketed layout. This module shards
 the bucketed layout instead: the :class:`..ops.bucketed.Buckets` arrays
 split on the PARTITION axis (``[P/n_dev, D|DP, L]`` per device) — the
 device analogue of the reference's per-partition content-addressed files
@@ -11,14 +11,12 @@ touches only its probed buckets:
 
 1. every device computes the coarse top-``nprobe`` redundantly from the
    replicated centroids (identical results, no communication),
-2. each device scans the probed buckets IT OWNS — in place, via the
-   scalar-prefetch Pallas lookup; probe slots owned by other devices are
-   clamped to local bucket 0 and masked to ``+inf`` (consecutive
-   duplicate block indices skip the VMEM re-fetch, so unowned slots cost
-   ~nothing),
+2. each device scans the probed buckets IT OWNS; probe slots owned by
+   other devices are clamped to local bucket 0 and masked to ``+inf``
+   through a fill length of 0,
 3. local ``top_k(k)`` in GLOBAL corpus rows (bucket slots hold original
    row ids),
-4. ``all_gather`` of ``k`` candidates per device over ICI + final
+4. ``all_gather`` of ``k`` candidates per device + final
    ``top_k`` — the same k-best merge as the masked path
    (``db/stored.rs:378-387`` restated on a mesh).
 
@@ -62,8 +60,8 @@ def shard_buckets(mesh: Mesh, buckets: Buckets) -> Buckets:
 
 
 def _local_bucket_scan(q, centroids, codebooks, bcodes, brows, lens,
-                       rotation, row_mask, *, k, nprobe, impl, metric):
-    """Per-device body: scan owned probed buckets, local top-k, ICI merge."""
+                       rotation, row_mask, *, k, nprobe, metric):
+    """Per-device body: scan owned probed buckets, local top-k, merge."""
     from ..ops.adc import coarse_scores
 
     b = q.shape[0]
@@ -80,14 +78,12 @@ def _local_bucket_scan(q, centroids, codebooks, bcodes, brows, lens,
     owned = (lidx >= 0) & (lidx < ploc)
     slot = jnp.where(owned, lidx, 0).astype(jnp.int32)  # local bucket id
 
-    # Unowned probe slots fuse into the scan's pad-slot mask as length 0
-    # (round 5: the mask rides the kernel; the separate [B, nprobe, L]
-    # where-pass is gone from the unfiltered path).
+    # Unowned probe slots join the scan's pad-slot mask as length 0.
     lens_g = jnp.where(owned, jnp.take(lens, slot, axis=0), 0)
     vdist = bucket_scan(
         bcodes, tables.reshape(b * nprobe, d * c),
         slot.reshape(b * nprobe),
-        lens_g.reshape(b * nprobe).astype(jnp.int32), d=d, impl=impl,
+        lens_g.reshape(b * nprobe).astype(jnp.int32), d=d,
     ).reshape(b, nprobe, l)
 
     if row_mask is not None:  # replicated [N] over GLOBAL corpus rows
@@ -103,13 +99,13 @@ def _local_bucket_scan(q, centroids, codebooks, bcodes, brows, lens,
         neg = jnp.pad(neg, ((0, 0), (0, k - kk)), constant_values=-jnp.inf)
         rows = jnp.pad(rows, ((0, 0), (0, k - kk)))
 
-    # k-best merge over ICI: k candidates per device, not the bucket scan.
+    # k-best merge: k candidates per device cross, not the bucket scan.
     mdist, mrows = merge_topk(neg, rows, k)
     return mdist, mrows, probed.astype(jnp.int32)
 
 
 def _local_range_scan(q, centroids, codebooks, bcodes, brows, lens,
-                      rotation, row_mask, *, nprobe, impl, metric):
+                      rotation, row_mask, *, nprobe, metric):
     """Per-device body for the sharded range scan.
 
     Same owned-bucket scan as :func:`_local_bucket_scan`, but instead of a
@@ -137,12 +133,12 @@ def _local_range_scan(q, centroids, codebooks, bcodes, brows, lens,
     owned = (lidx >= 0) & (lidx < ploc)
     slot = jnp.where(owned, lidx, 0).astype(jnp.int32)
 
-    # Unowned slots as fused length-0 mask, as in _local_bucket_scan.
+    # Unowned slots as length-0 mask, as in _local_bucket_scan.
     lens_g = jnp.where(owned, jnp.take(lens, slot, axis=0), 0)
     vdist = bucket_scan(
         bcodes, tables.reshape(b * nprobe, d * c),
         slot.reshape(b * nprobe),
-        lens_g.reshape(b * nprobe).astype(jnp.int32), d=d, impl=impl,
+        lens_g.reshape(b * nprobe).astype(jnp.int32), d=d,
     ).reshape(b, nprobe, l)
 
     rows_g = jnp.take(brows, slot, axis=0)              # [B, nprobe, L]
@@ -163,7 +159,7 @@ def _local_range_scan(q, centroids, codebooks, bcodes, brows, lens,
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("mesh", "nprobe", "impl", "metric"))
+                   static_argnames=("mesh", "nprobe", "metric"))
 def range_bucketed_sharded(
     q: jax.Array,
     centroids: jax.Array,
@@ -174,7 +170,6 @@ def range_bucketed_sharded(
     *,
     mesh: Mesh,
     nprobe: int,
-    impl: str | None = None,
     metric: str = "l2",
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Sharded range-search candidates — the mesh analogue of
@@ -182,9 +177,6 @@ def range_bucketed_sharded(
     ``(keys [B, nprobe·L], rows [B, nprobe·L], probed)`` contract
     (non-candidates ``+inf`` / row ``-1``), outputs replicated.
     """
-    if impl is None:
-        impl = ("pallas" if mesh.devices.flat[0].platform == "tpu"
-                else "gather")
     has_rot, has_mask = rotation is not None, row_mask is not None
     extras, especs = [], []
     if has_rot:
@@ -198,7 +190,7 @@ def range_bucketed_sharded(
         rot = ex[0] if has_rot else None
         rm = ex[-1] if has_mask else None
         return _local_range_scan(q, cents, cbs, bc, br, ln, rot, rm,
-                                 nprobe=nprobe, impl=impl, metric=metric)
+                                 nprobe=nprobe, metric=metric)
 
     fn = jax.shard_map(
         local, mesh=mesh,
@@ -212,7 +204,7 @@ def range_bucketed_sharded(
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("mesh", "k", "nprobe", "impl", "metric"))
+                   static_argnames=("mesh", "k", "nprobe", "metric"))
 def query_bucketed_sharded(
     q: jax.Array,
     centroids: jax.Array,
@@ -224,22 +216,14 @@ def query_bucketed_sharded(
     mesh: Mesh,
     k: int,
     nprobe: int,
-    impl: str | None = None,
     metric: str = "l2",
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Batched pruned k-NN with buckets partition-sharded over ``mesh``.
 
     Same contract as :func:`..ops.bucketed.query_bucketed` (``row_mask``
     is over global corpus rows, replicated). ``buckets`` must come from
-    :func:`shard_buckets`. ``impl`` resolves from the MESH's devices —
-    not the default device, which may be a different platform (a CPU
-    validation mesh on a TPU-default box must not lower Mosaic onto CPU):
-    Pallas scalar-prefetch on a TPU mesh, the XLA gather formulation
-    elsewhere.
+    :func:`shard_buckets`.
     """
-    if impl is None:
-        impl = ("pallas" if mesh.devices.flat[0].platform == "tpu"
-                else "gather")
     has_rot, has_mask = rotation is not None, row_mask is not None
     extras, especs = [], []
     if has_rot:
@@ -253,8 +237,7 @@ def query_bucketed_sharded(
         rot = ex[0] if has_rot else None
         rm = ex[-1] if has_mask else None
         return _local_bucket_scan(q, cents, cbs, bc, br, ln, rot, rm,
-                                  k=k, nprobe=nprobe, impl=impl,
-                                  metric=metric)
+                                  k=k, nprobe=nprobe, metric=metric)
 
     fn = jax.shard_map(
         local, mesh=mesh,

@@ -2,7 +2,7 @@
 
 Same shape as :mod:`.query`: the raw corpus rows shard over the ``"shard"``
 axis, each device runs the chunked exact scan (:mod:`..ops.exact`) on its
-local rows, and only ``k`` candidates per device cross ICI in the
+local rows, and only ``k`` candidates per device cross the mesh in the
 ``all_gather`` merge.
 """
 
@@ -79,7 +79,7 @@ def rerank_sharded(q: jax.Array, rows: jax.Array, valid: jax.Array,
     top-R of :func:`..parallel.query.query_sharded` /
     ``query_bucketed_sharded``), ``valid [B, R]`` bool (False where the
     ADC pass ran dry), ``x [N_pad, M]`` row-sharded originals
-    (:func:`shard_flat`). Only the ``[B, R]`` candidate keys cross ICI
+    (:func:`shard_flat`). Only the ``[B, R]`` candidate keys cross devices
     (one ``psum``) — never the gathered ``[B, R, M]`` vectors. Returns
     replicated ``(exact_keys [B, k], rows [B, k])``.
     """
@@ -145,7 +145,7 @@ def exact_keys_sharded(q: jax.Array, x: jax.Array, *, mesh: Mesh, n: int,
     """Exact ranking keys of every corpus row, corpus sharded — the mesh
     analogue of the flat tier's full key scan (range search). Returns
     replicated ``[B, N_pad]`` (pad columns ``+inf``); the full key array
-    crosses ICI, inherent to range search."""
+    crosses devices, inherent to range search."""
     fn = jax.shard_map(
         functools.partial(_local_keys, n=n, metric=metric),
         mesh=mesh,

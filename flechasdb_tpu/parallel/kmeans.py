@@ -1,21 +1,17 @@
-"""Sharded k-means: the fused Pallas Lloyd round per device + ``psum``.
+"""Sharded k-means: the Lloyd round per device under ``shard_map`` + ``psum``.
 
-GSPMD cannot partition a ``pallas_call`` (a custom call is opaque to the
-SPMD partitioner), which is why the round-2 sharded build pinned the
-15×-slower two-pass XLA formulation. ``shard_map`` sidesteps the
-partitioner entirely: each device runs
-:func:`..ops.pallas_kmeans.lloyd_round` on its local corpus shard and the
-``[K, M]`` cluster sums + ``[K]`` counts — kilobytes per round — cross the
-ICI as one ``psum``. Seeding, centroid means, and the convergence rule are
-O(K·M) and stay replicated XLA, bit-identical to the single-chip
-:func:`..ops.kmeans.fit`.
+Each device runs :func:`..ops.kmeans._fused_round` on its local corpus
+shard, and the ``[K, M]`` cluster sums + ``[K]`` counts — kilobytes per
+round — cross the mesh as one ``psum``. Seeding, centroid means, and the
+convergence rule are O(K·M) and stay replicated, bit-identical to the
+single-chip :func:`..ops.kmeans.fit`.
 
 Reference hot path being scaled: ``kmeans.rs:232-306`` (the two O(N·K·M)
 phases of one Lloyd round, SURVEY.md §3.1).
 
 Padding convention: shard_map needs the sharded axis evenly divisible, so
 corpora are zero-padded. A zero row contributes nothing to the cluster
-sums (its one-hot row multiplies a zero vector) but would inflate one
+sums (it adds a zero vector) but would inflate one
 cluster's count — every zero row assigns to the first-minimum cluster of
 ``argmin_k ‖c_k‖²`` — so that count is corrected after the ``psum``.
 Assignments in pad slots are garbage and must be sliced off by the caller.
@@ -42,34 +38,25 @@ def _gather_rows(mesh: Mesh, x: jax.Array, rows: jax.Array) -> jax.Array:
 
 def fused_round_sharded(x: jax.Array, centroids: jax.Array, k: int,
                         impl: str | None, mesh: Mesh, n_pad: int,
-                        xg: jax.Array | None = None,
                         ) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """One Lloyd round over the mesh: per-device fused pass + ``psum``.
+    """One Lloyd round over the mesh: per-device round + ``psum``.
 
     ``x: [B, Np, M]`` sharded ``P(None, AXIS, None)`` with ``n_pad``
-    trailing zero rows; ``centroids: [B, K, M]`` replicated. ``xg`` is the
-    optional pre-grouped ``[G, Np, 128]`` layout (also row-sharded) for
-    the grouped kernel — :func:`fit_sharded` computes it ONCE so the
-    per-round regroup (a full corpus-shard copy) stays out of the Lloyd
-    loop, exactly as :func:`..ops.kmeans.fit` hoists it. Returns
+    trailing zero rows; ``centroids: [B, K, M]`` replicated. Returns
     ``(indices [B, Np] sharded, sums [B, K, M], counts [B, K])`` with the
     pad rows' count contribution removed.
     """
 
-    def local(xl, c, *xgl):
-        idx, sums, counts = kmeans._fused_round(
-            xl, c, k, impl, xgl[0] if xgl else None)
+    def local(xl, c):
+        idx, sums, counts = kmeans._fused_round(xl, c, k, impl)
         return (idx, jax.lax.psum(sums, AXIS), jax.lax.psum(counts, AXIS))
 
-    args = (x, centroids) if xg is None else (x, centroids, xg)
-    in_specs = ((P(None, AXIS, None), P()) if xg is None else
-                (P(None, AXIS, None), P(), P(None, AXIS, None)))
     idx, sums, counts = jax.shard_map(
         local, mesh=mesh,
-        in_specs=in_specs,
+        in_specs=(P(None, AXIS, None), P()),
         out_specs=(P(None, AXIS), P(), P()),
         check_vma=False,
-    )(*args)
+    )(x, centroids)
     if n_pad:
         # Zero pad rows all landed on the first-minimum of ‖c_k‖² (their
         # distance column is exactly cc); remove them from that count.
@@ -80,23 +67,14 @@ def fused_round_sharded(x: jax.Array, centroids: jax.Array, k: int,
 
 
 def _assign_sharded(x: jax.Array, centroids: jax.Array, k: int,
-                    impl: str | None, mesh: Mesh,
-                    xg: jax.Array | None = None) -> jax.Array:
+                    impl: str | None, mesh: Mesh) -> jax.Array:
     """Sharded assignment-only pass (no collective needed)."""
-
-    def local(xl, c, *xgl):
-        return kmeans._assign_only(xl, c, k, impl,
-                                   xgl[0] if xgl else None)
-
-    args = (x, centroids) if xg is None else (x, centroids, xg)
-    in_specs = ((P(None, AXIS, None), P()) if xg is None else
-                (P(None, AXIS, None), P(), P(None, AXIS, None)))
     return jax.shard_map(
-        local, mesh=mesh,
-        in_specs=in_specs,
+        lambda xl, c: kmeans._assign_only(xl, c, k, impl), mesh=mesh,
+        in_specs=(P(None, AXIS, None), P()),
         out_specs=P(None, AXIS),
         check_vma=False,
-    )(*args)
+    )(x, centroids)
 
 
 def fit_sharded(x: jax.Array, k: int, key: jax.Array, *, mesh: Mesh,
@@ -122,6 +100,7 @@ def fit_sharded(x: jax.Array, k: int, key: jax.Array, *, mesh: Mesh,
     b, np_, m = x.shape
     n = n_valid
     n_pad = np_ - n
+    kmeans._assign_precision(impl)  # validates impl
     if n < k:
         raise ValueError(f"vs has fewer vectors than k: {n} < {k}")
     if max_rounds < 1:
@@ -132,23 +111,6 @@ def fit_sharded(x: jax.Array, k: int, key: jax.Array, *, mesh: Mesh,
         idx = jnp.broadcast_to(jnp.arange(np_, dtype=jnp.int32), (b, np_))
         return kmeans.KMeansResult(cents, idx, jnp.zeros((b,), jnp.int32),
                                    jnp.zeros((b,), jnp.float32))
-    # Resolve the kernel once against the LOCAL shard shape (auto picks by
-    # per-device bytes), so the grouped kernel's lane-fold layout can be
-    # computed one time outside the Lloyd loop — regroup_divisions is a
-    # full corpus-shard copy that must not run per round (it is N-axis-
-    # preserving plain XLA, so GSPMD shards it like the corpus itself).
-    # Resolved BEFORE the train_cap branch: its full-corpus assignment
-    # pass also runs inside shard_map, where an unresolved None would fall
-    # back to the DEFAULT device's platform — on a CPU mesh in a process
-    # whose default backend is the TPU plugin that picks a kernel that
-    # cannot lower (same hazard _auto_impl documents).
-    base, fast = kmeans._impl_parts(impl)
-    if base is None:
-        local_shape = jax.ShapeDtypeStruct(
-            (b, -(-np_ // mesh.devices.size), m), x.dtype)
-        base = kmeans._auto_impl(local_shape,
-                                 platform=mesh.devices.flat[0].platform)
-    impl = base + "_fast" if fast else base
     if train_cap is not None and train_cap > 0 and n > train_cap:
         if train_cap < k:
             raise ValueError(
@@ -165,13 +127,6 @@ def fit_sharded(x: jax.Array, k: int, key: jax.Array, *, mesh: Mesh,
         idx = _assign_sharded(x, sub.centroids, k, impl, mesh)
         return kmeans.KMeansResult(sub.centroids, idx, sub.rounds,
                                    sub.gradient)
-    xg = None
-    if impl.startswith("pallas_grouped"):
-        from ..ops.pallas_kmeans import regroup_divisions
-        xg = jax.lax.with_sharding_constraint(
-            regroup_divisions(x),
-            NamedSharding(mesh, P(None, AXIS, None)))
-
     # Seeding — mirrors kmeans._subsampled_init exactly (same key splits,
     # same rows) on a replicated gather of the (sub)sample.
     cap = kmeans._seed_cap(k)
@@ -192,7 +147,6 @@ def fit_sharded(x: jax.Array, k: int, key: jax.Array, *, mesh: Mesh,
     # differ from the single-chip fit.
     return kmeans.lloyd_loop(
         centroids, indices, x.dtype, epsilon=epsilon, max_rounds=max_rounds,
-        round_fn=lambda c: fused_round_sharded(x, c, k, impl, mesh,
-                                               n_pad, xg),
-        assign_fn=lambda c: _assign_sharded(x, c, k, impl, mesh, xg),
+        round_fn=lambda c: fused_round_sharded(x, c, k, impl, mesh, n_pad),
+        assign_fn=lambda c: _assign_sharded(x, c, k, impl, mesh),
         post_update=lambda c: _replicated(mesh, c))

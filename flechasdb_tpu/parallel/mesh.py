@@ -1,7 +1,7 @@
 """Device mesh construction and corpus sharding helpers.
 
 One mesh axis — ``"shard"`` — carries the corpus (vector/code rows). This is
-the TPU equivalent of the reference's per-partition file sharding
+the device equivalent of the reference's per-partition file sharding
 (``database.proto:16-39``): independent slices of the corpus live on
 independent devices, and only ``k`` candidates per device cross the
 interconnect at query time.
@@ -90,7 +90,7 @@ def shard_mask(mesh: Mesh, mask: np.ndarray) -> jax.Array:
 
 def merge_topk(neg: "jax.Array", rows: "jax.Array", k: int,
                ) -> tuple["jax.Array", "jax.Array"]:
-    """k-best merge over ICI shared by every sharded query path.
+    """k-best merge across the mesh, shared by every sharded query path.
 
     ``neg [B, k]`` (NEGATED distances, so larger is better) and ``rows
     [B, k]`` are each device's local candidates; ``all_gather`` moves only

@@ -8,7 +8,7 @@ axis and the program becomes, per device:
    replicated centroids/codebooks (tiny: ``[B, P, D, C]``),
 2. masked gather-sum scan over the **local** rows,
 3. local ``lax.top_k(k)``,
-4. ``all_gather`` of the ``k`` per-device candidates over ICI, then a final
+4. ``all_gather`` of the ``k`` per-device candidates, then a final
    ``top_k`` on ``[B, n_dev * k]``.
 
 Only ``n_dev × k`` (distance, row) pairs cross the interconnect — the sharded
@@ -58,7 +58,7 @@ def _local_scan(q, centroids, codebooks, codes, pidx, rotation, row_mask,
     base = jax.lax.axis_index(AXIS) * nloc
     rows = rows + base
 
-    # k-best merge over ICI: k candidates per device, not the full scan.
+    # k-best merge: k candidates per device cross, not the full scan.
     mdist, mrows = merge_topk(neg, rows, k)
     return mdist, mrows, probed.astype(jnp.int32)
 
@@ -106,7 +106,7 @@ def range_sharded(
     mesh analogue of :func:`..ops.adc.range_masked_scan`, same
     ``(keys [B, N_pad], probed [B, nprobe])`` contract (column ``i`` IS
     corpus row ``i``; non-candidates ``+inf``), outputs replicated. Unlike
-    the k-NN merge, the full key array crosses ICI — inherent to range
+    the k-NN merge, the full key array crosses devices — inherent to range
     search, whose result is the thresholded candidate set itself.
     """
     has_rot, has_mask = rotation is not None, row_mask is not None

@@ -40,9 +40,9 @@ def partition(x: jax.Array, p: int, key: jax.Array,
               impl: str | None = None) -> Partitions:
     """Clusters ``x [N, M]`` into ``p`` partitions and computes residues.
 
-    ``impl`` selects the Lloyd-round kernel / numerics
-    (:func:`.ops.kmeans._fused_round`; e.g. ``"_fast"`` = auto kernel
-    with single-bf16-pass numerics)."""
+    ``impl`` selects the Lloyd-round numerics
+    (:func:`.ops.kmeans._assign_precision`; ``"_fast"`` =
+    ``Precision.DEFAULT`` assignment matmuls)."""
     if events is _noop:
         res = kmeans.fit(x[None], p, key, epsilon=epsilon, impl=impl)
     else:

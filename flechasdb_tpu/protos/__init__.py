@@ -6,7 +6,7 @@ hand-rolled codec lets the hot fields — multi-megabyte packed float arrays
 and packed-varint PQ codes — decode straight into numpy buffers
 (``np.frombuffer`` for floats, a vectorized varint kernel for codes) instead
 of crawling through a generic protobuf runtime object tree. That keeps the
-host-side load path fast enough to feed the TPU.
+host-side load path fast enough to feed the device.
 """
 
 from .messages import (

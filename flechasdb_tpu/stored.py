@@ -9,7 +9,7 @@ partitions.
 
 This port keeps the same laziness on the host (numpy) and adds a *warm
 device path*: :meth:`StoredDatabase.preload` (or the first
-:meth:`query_batch`) pushes the whole index to TPU HBM, after which queries
+:meth:`query_batch`) pushes the whole index to device memory, after which queries
 run the fused masked-scan kernel from :mod:`.ops.adc`, batched.
 
 Verification parity: root, codebooks and partitions are hash-verified on
@@ -990,7 +990,7 @@ class StoredDatabase:
         probed buckets it owns (:mod:`.parallel.bucketed`) — falling back
         to the masked full scan (:mod:`.parallel.query`) under partition
         skew; either way local top-k per device then an ``all_gather``
-        k-best merge over ICI.
+        k-best merge across the mesh.
 
         Partition files load CONCURRENTLY on a thread pool — the native
         inflate+hash pass releases the GIL, so open→inflate→decode

@@ -6,7 +6,7 @@ and supports incremental ``update`` of individual weights with atomic
 failure (no weight changes if any part of the update is invalid). Zero-weight
 entries are never returned (``distribution.rs:99-122``).
 
-In the TPU engine this role is played by ``jax.random.categorical`` with
+In the device engine this role is played by ``jax.random.categorical`` with
 on-device weight updates (:func:`..ops.kmeans.plusplus_init`); the host-side
 class is provided for parity and for host-side sampling needs. The RNG is
 injectable — pass any ``uniform(low, high) -> float`` callable — which is

@@ -1,7 +1,7 @@
 """Profiling helpers.
 
 The reference's observability is event callbacks timed by callers
-(SURVEY.md §5); on TPU the device timeline matters too, so these wrappers
+(SURVEY.md §5); on an accelerator the device timeline matters too, so these wrappers
 pair the event API with ``jax.profiler``: wrap a build or query-serving
 region in :func:`trace` and inspect the dump with TensorBoard/XProf, or
 scope individual phases with :func:`annotate` so they show up as named

@@ -1,8 +1,8 @@
 """Synthetic corpora with descriptor-like statistics.
 
 No-egress stand-ins for SIFT1M/GIST1M/Deep10M (BASELINE.json configs).
-Round 1 used a single global low-rank subspace; VERDICT.md #4 flagged that
-as much easier than real descriptor data. Real local-descriptor sets are
+A single global low-rank subspace would be much easier than real
+descriptor data. Real local-descriptor sets are
 *clustered* (images share visual words) with low intrinsic dimensionality
 inside each cluster — that structure is what both IVF (cluster axis) and PQ
 (within-cluster manifold) exploit. This generator models it as a Gaussian
@@ -121,10 +121,10 @@ def gmm_corpus_device(key, n: int, m: int, *,
     """:func:`gmm_corpus` generated ON DEVICE (same mixture family, JAX
     PRNG instead of numpy's — statistically equivalent, not bit-equal).
 
-    At 10M x 96 the host generator needs ~100 s of CPU (19 minutes on a
-    1-vCPU host) plus a 3.84 GB ``device_put``; this program fills HBM
-    directly in a few seconds. Generation is chunked with
-    ``dynamic_update_slice`` so peak HBM stays ``out + O(chunk x m)``
+    At 10M x 96 the host generator needs ~100 s of CPU plus a 3.84 GB
+    ``device_put``; this program fills device memory directly.
+    Generation is chunked with ``dynamic_update_slice`` so peak device
+    memory stays ``out + O(chunk x m)``
     regardless of ``n``.
     """
     import jax

@@ -6,7 +6,7 @@ The reference stores vectors in a contiguous block (``src/vector.rs:29-100``
 feature dimension into ``d`` equal column blocks for product quantization
 (``vector.rs:154-174``).
 
-TPU-first representation: a vector set *is* a dense ``[N, M]`` array (numpy on
+Device-first representation: a vector set *is* a dense ``[N, M]`` array (numpy on
 the host, ``jax.Array`` on device). Sub-vector division is a reshape —
 ``x.reshape(N, D, M // D)`` — no view machinery needed; per-division work is a
 ``vmap``/leading-batch-axis over ``D``. This module keeps only the thin
@@ -39,7 +39,7 @@ def as_vector_set(data: Array, vector_size: int | None = None) -> np.ndarray:
     ``README.md:54,63``): f64 (and integer) input is ACCEPTED with a
     *checked* cast to f32 — finite values that would overflow to ``±inf``
     raise :class:`InvalidArgs` instead of silently corrupting distances.
-    The device path is f32 (MXU-native); :mod:`flechasdb_tpu.oracle` is the
+    The device path is f32; :mod:`flechasdb_tpu.oracle` is the
     f64-capable host path. Documented divergence: see PARITY.md.
     """
     arr = np.asarray(data)

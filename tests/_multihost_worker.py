@@ -1,9 +1,9 @@
-"""Worker body for the two-process DCN-boundary dryrun (VERDICT r4 #6).
+"""Worker body for the two-process DCN-boundary dryrun.
 
 Run as ``python _multihost_worker.py <process_id> <coordinator_port>``.
 Each of the two processes exposes 4 virtual CPU devices; together they
 form an 8-device mesh whose axis crosses a ``jax.distributed`` process
-boundary — the same seam a multi-HOST TPU pod crosses over DCN. The
+boundary — the same seam a multi-HOST mesh crosses over the network. The
 checks are the core of ``__graft_entry__._dryrun_checks`` (build +
 sharded queries + parity against the single-program path), adapted only
 in how results are fetched: every asserted value is replicated (post

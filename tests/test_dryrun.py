@@ -3,8 +3,8 @@
 The driver calls ``dryrun_multichip(8)``; a power-of-two mesh never hits
 the row/partition padding seams (``shard_flat`` pad rows, ``fit_sharded``
 pad rows, ``shard_buckets`` pad partitions).  n=6 — non-power-of-two and
-coprime with the +3 row remainder — exercises every one of them
-(VERDICT round-3 #7).  Reference scaling design: docs/SCALING.md padding
+coprime with the +3 row remainder — exercises every one of them.
+Reference scaling design: docs/SCALING.md padding
 conventions; reference hot path scaled: kmeans.rs:232-306.
 """
 

@@ -1,4 +1,4 @@
-"""Golden fixture for the FLAT-tier wire format (VERDICT r4 #5).
+"""Golden fixture for the FLAT-tier wire format.
 
 ``tests/fixtures/flatgolden`` is a checked-in tree produced from
 hand-built arrays (exact f32 quarters, fixed UUIDs, no RNG, no device

@@ -1,4 +1,4 @@
-"""Golden INDEPENDENT-WRITER fixture (VERDICT.md round-2 next #6).
+"""Golden INDEPENDENT-WRITER fixture.
 
 ``tests/fixtures/refdb`` is a committed database tree produced once by the
 independent writer of ``test_reference_written.py`` — protoc-generated

@@ -1,7 +1,7 @@
 """Ports the reference linalg edge-case semantics (src/linalg.rs:365-869).
 
 The reference tests each kernel at sizes below/at/above/straddling its 16-wide
-unroll; on TPU there is no unroll so we test a representative size sweep plus
+unroll; on the device there is no unroll so we test a representative size sweep plus
 the semantic edges: empty inputs, zero vectors, and the norm2 overflow
 prescaling at 1e±30/36.
 """

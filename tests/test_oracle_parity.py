@@ -1,5 +1,5 @@
-"""Quality parity: the TPU build must match the NumPy oracle of the
-reference's exact algorithm (VERDICT.md round-1 #4).
+"""Quality parity: the device build must match the NumPy oracle of the
+reference's exact algorithm.
 
 RNG streams can never be bit-identical across implementations
 (SURVEY.md §7 "hard parts"), so parity is asserted on the quantities that
@@ -36,7 +36,7 @@ def _recall(rows_list, gt):
 
 
 def test_kmeans_inertia_parity(data):
-    """TPU k-means quality == oracle k-means quality (within seed noise)."""
+    """Device k-means quality == oracle k-means quality (within seed noise)."""
     import jax
 
     from flechasdb_tpu.ops import kmeans as tk
@@ -52,12 +52,12 @@ def test_kmeans_inertia_parity(data):
         theirs.append(oracle.inertia(x, o.centroids, o.indices))
     ratio = np.mean(ours) / np.mean(theirs)
     assert 0.9 < ratio < 1.1, (
-        f"TPU k-means inertia off oracle by {ratio:.3f}x "
+        f"device k-means inertia off oracle by {ratio:.3f}x "
         f"(ours {ours}, oracle {theirs})")
 
 
 def test_build_recall_parity(data):
-    """Full-build recall@10 at equal (P, D, C): TPU vs oracle."""
+    """Full-build recall@10 at equal (P, D, C): device vs oracle."""
     import jax
 
     from flechasdb_tpu.ops.adc import query_masked_scan
@@ -80,12 +80,12 @@ def test_build_recall_parity(data):
             for di in range(d)], axis=1)
         return float(((resid - rec) ** 2).sum())
 
-    e_tpu = pq_err(built.codebooks, built.codes,
+    e_dev = pq_err(built.codebooks, built.codes,
                    built.partition_centroids, built.partition_indices)
     e_orc = pq_err(ob.codebooks, ob.codes,
                    ob.partition_centroids, ob.partition_indices)
-    assert 0.85 < e_tpu / e_orc < 1.18, (
-        f"PQ reconstruction error mismatch: tpu {e_tpu:.1f} "
+    assert 0.85 < e_dev / e_orc < 1.18, (
+        f"PQ reconstruction error mismatch: device {e_dev:.1f} "
         f"vs oracle {e_orc:.1f}")
 
     for nprobe in (2, p):
@@ -94,11 +94,11 @@ def test_build_recall_parity(data):
             built.codes.astype(np.int32),
             built.partition_indices.astype(np.int32),
             k=k, nprobe=nprobe)
-        r_tpu = _recall(list(np.asarray(rows)), gt)
+        r_dev = _recall(list(np.asarray(rows)), gt)
         r_orc = _recall([oracle.adc_query(qq, ob, k, nprobe)[0]
                          for qq in q], gt)
-        assert abs(r_tpu - r_orc) < 0.05, (
-            f"recall@10 nprobe={nprobe}: tpu {r_tpu:.3f} "
+        assert abs(r_dev - r_orc) < 0.05, (
+            f"recall@10 nprobe={nprobe}: device {r_dev:.3f} "
             f"vs oracle {r_orc:.3f}")
 
 
@@ -179,8 +179,8 @@ def test_caps_parity_at_engaging_scale():
     """The two quality-affecting shortcuts — k-means++ seeding on a
     subsample (PARITY.md divergence #2) and PQ codebook training under
     ``pq_cap`` — must not cost recall at a scale where they ENGAGE
-    (VERDICT.md round-2 weak #4: previous parity tests ran below both
-    thresholds, so a regression in the subsampled paths was invisible)."""
+    (below both thresholds a regression in the subsampled paths would
+    be invisible)."""
     import jax
 
     from flechasdb_tpu.ops import kmeans as tk
@@ -245,7 +245,7 @@ def test_caps_parity_at_engaging_scale():
 def test_builder_f64_dtype_seam(tmp_path):
     """DatabaseBuilder(dtype=np.float64) routes the build through the f64
     oracle pipeline and serves f32 end to end: build → save → load →
-    query round-trips (VERDICT.md round-2 #8)."""
+    query round-trips."""
     import flechasdb_tpu as fdb
 
     rng = np.random.default_rng(3)

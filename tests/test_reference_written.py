@@ -1,8 +1,7 @@
 """Acceptance test: load a database tree written by an INDEPENDENT writer.
 
-VERDICT.md (round 1) flagged that the wire-compat claim had only been
-exercised message-by-message: no *whole database tree* written by an
-independent implementation had ever been loaded. No Rust toolchain exists in
+Message-by-message checks leave the wire-compat claim open: no *whole
+database tree* written by an independent implementation would be loaded. No Rust toolchain exists in
 this image, so this module plays the reference's role with a writer built
 from nothing but the protoc-generated codec + stdlib (zlib/hashlib/base64) —
 it exercises NONE of flechasdb_tpu's encode path, mirroring

@@ -1,5 +1,5 @@
 """Serving-path guards: concurrent preload events and the masked-scan
-HBM budget (VERDICT.md round-1 #6 and #8)."""
+HBM budget."""
 
 import threading
 

@@ -151,3 +151,29 @@ def test_gmm_device_generator_matches_host_statistics():
     dc = np.partition(dc, 1, axis=1)[:, 1]
     ratio = np.median(dq) / np.median(dc)
     assert 0.2 < ratio < 5.0
+
+
+# --- compilation cache --------------------------------------------------------
+
+@pytest.mark.parametrize("env_dir", ["/cache/from/env", None])
+def test_compilation_cache_dir(monkeypatch, env_dir):
+    """``JAX_COMPILATION_CACHE_DIR`` wins and nothing is set in code;
+    without it the cache goes to the fixed in-checkout directory."""
+    import jax
+
+    from flechasdb_tpu.utils import cache
+
+    updates = {}
+    monkeypatch.setattr(jax.config, "update",
+                        lambda name, value: updates.__setitem__(name, value))
+    if env_dir is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    got = cache.enable_compilation_cache()
+    if env_dir is None:
+        assert got == cache.DEFAULT_DIR
+        assert updates["jax_compilation_cache_dir"] == cache.DEFAULT_DIR
+        assert cache.DEFAULT_DIR.endswith(".jax_cache")
+    else:
+        assert got == env_dir and updates == {}
